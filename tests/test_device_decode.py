@@ -1,12 +1,12 @@
 """Device-resident decode (pack2 fast path, runtime/device.py):
 differential tests against the native engine across the corpus, plus
-kernel-level checks for the v2 Rice bit-unpack (G2=8 groups, windows
+kernel-level checks for the Rice bit-unpack (G2=8 groups, windows
 emitted by the C++ scan) and the transposed-form LPC kernel.
 
-The CPU suite exercises the shared jnp math (`use_pallas=False` path is
-selected automatically off-TPU); the Pallas kernels themselves are
-covered by interpret-mode tests here and by tests/test_tpu_smoke.py on
-real hardware."""
+The CPU suite runs the plain XLA math (runtime/backend.py picks "cpu");
+the GPU kernels are covered by interpret-mode tests here and in
+tests/test_lpc_triton.py, and compiled for the card by
+tests/test_gpu_smoke.py."""
 
 import numpy as np
 import pytest
@@ -202,15 +202,15 @@ def test_device_decode_mutation_robustness(corpus):
                 dd.to_host(verify_md5=True)
         except FlacError:
             pass
-    """Transposed-form Pallas LPC kernel (interpret mode) == the XLA
+
+
+def _lpc_kernel_vs_scan(seed, n, B, hist):
+    """Transposed-form GPU LPC kernel (interpret mode) against the XLA
     scan reference across random orders/shifts."""
-    import jax
-    import jax.numpy as jnp
-    from zflac_tpu.ops.lpc2 import lpc2_reconstruct_inline
+    from zflac_tpu.ops.lpc_triton import lpc_triton
     from zflac_tpu.runtime.reconstruct import _lpc_scan
 
-    rng = np.random.default_rng(7)
-    n, B, hist = 128, 64, 8
+    rng = np.random.default_rng(seed)
     rows = rng.integers(-3000, 3000, (n, B)).astype(np.int32)
     order = rng.integers(1, hist + 1, n).astype(np.int32)
     shift = rng.integers(0, 14, n).astype(np.int32)
@@ -220,40 +220,23 @@ def test_device_decode_mutation_robustness(corpus):
     ref = np.asarray(jax.jit(_lpc_scan)(
         jnp.asarray(rows), jnp.asarray(cf[:, ::-1].copy()),
         jnp.asarray(shift), jnp.asarray(order)))
-    out = lpc2_reconstruct_inline(
+    out = lpc_triton(
         jnp.asarray(rows.T), jnp.asarray(cf[:, :hist].T.copy()),
         jnp.asarray(shift[None, :]), jnp.asarray(order[None, :]),
-        lanes=128, hist=hist, unroll=8, interpret=True)
+        hist=hist, interpret=True)
     np.testing.assert_array_equal(np.asarray(out).T, ref)
+
+
+def test_lpc_kernel_interpret_matches_scan():
+    _lpc_kernel_vs_scan(7, 128, 64, 8)
 
 
 @pytest.mark.parametrize("B", [640, 1152, 2304])
 def test_lpc2_kernel_non_pow2_block(B):
-    """Padded block sizes that are 128-multiples but NOT divisible by
-    512 (FLAC blocks 576/1152/2304) must still tile: the time tile is
-    gcd(Bp, 512), not min (ADVICE r4 crash)."""
-    import jax
-    import jax.numpy as jnp
-    from zflac_tpu.ops.lpc2 import lpc2_lanes, lpc2_reconstruct_inline
-    from zflac_tpu.runtime.reconstruct import _lpc_scan
-
-    assert lpc2_lanes(128, B) is not None
-    rng = np.random.default_rng(B)
-    n, hist = 128, 8
-    rows = rng.integers(-3000, 3000, (n, B)).astype(np.int32)
-    order = rng.integers(1, hist + 1, n).astype(np.int32)
-    shift = rng.integers(0, 14, n).astype(np.int32)
-    cf = np.zeros((n, 32), np.int32)
-    for i in range(n):
-        cf[i, :order[i]] = rng.integers(-2048, 2048, order[i])
-    ref = np.asarray(jax.jit(_lpc_scan)(
-        jnp.asarray(rows), jnp.asarray(cf[:, ::-1].copy()),
-        jnp.asarray(shift), jnp.asarray(order)))
-    out = lpc2_reconstruct_inline(
-        jnp.asarray(rows.T), jnp.asarray(cf[:, :hist].T.copy()),
-        jnp.asarray(shift[None, :]), jnp.asarray(order[None, :]),
-        lanes=128, hist=hist, unroll=8, interpret=True)
-    np.testing.assert_array_equal(np.asarray(out).T, ref)
+    """Padded block sizes that are 128-multiples but not powers of two
+    (FLAC blocks 576/1152/2304) run the whole time axis in one program:
+    the kernel needs only B % 8 == 0."""
+    _lpc_kernel_vs_scan(B, 128, B, 8)
 
 
 def test_rice16_meta_packing_sanity(corpus):
@@ -300,7 +283,7 @@ def test_sorted_layout_padded_chunks(name, corpus):
     core = functools.partial(
         _reconstruct_pack2_core, spec=ck.spec_key(), num_channels=ck.C,
         container_bits=fmt.container_bits(ck.bits_per_sample),
-        do_decorrelate=ck.do_decorrelate, use_pallas=False)
+        do_decorrelate=ck.do_decorrelate, backend="cpu")
     buf = jnp.asarray(ck.device_buf)
     full = np.asarray(jax.jit(lambda b: core(b))(buf))
     ref = zflac_tpu.decode(data, engine="native")

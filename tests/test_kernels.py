@@ -1,13 +1,13 @@
-"""Kernel unit tests: the Pallas LPC kernel (interpret mode on CPU)
-against the XLA scan implementation and numpy, over randomized orders,
-shifts, and coefficients."""
+"""Kernel unit tests: the GPU LPC kernels (Pallas interpret mode on
+CPU) and the plain XLA scans against numpy references, over randomized
+orders, shifts, and coefficients; the backend chooser."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from zflac_tpu.ops.lpc import lpc_reconstruct_tpu
+from zflac_tpu.ops.lpc_triton import lpc_triton
 from zflac_tpu.runtime.reconstruct import _lpc_scan
 
 
@@ -48,15 +48,18 @@ def test_scan_matches_numpy(seed):
 
 @pytest.mark.parametrize("lanes,hist", [(128, 32), (128, 16)])
 def test_pallas_interpret_matches_numpy(lanes, hist):
+    """The int32 GPU LPC kernel (transposed form, forward coefficients
+    cfwd[r] = c_{r+1} = coeffs_rev slot 31-r) == the direct-form numpy
+    recurrence over `lanes` subframes."""
     rng = np.random.default_rng(2)
     order, shift, coeffs_rev, rows = _random_case(
         rng, lanes, 64, max_order=hist)
     ref = _numpy_lpc(rows, coeffs_rev, shift, order)
-    out = lpc_reconstruct_tpu(
+    out = lpc_triton(
         jnp.array(np.ascontiguousarray(rows.T)),
-        jnp.array(np.ascontiguousarray(coeffs_rev[:, 32 - hist:].T)),
+        jnp.array(np.ascontiguousarray(coeffs_rev[:, ::-1][:, :hist].T)),
         jnp.array(shift[None, :]), jnp.array(order[None, :]),
-        lanes=lanes, hist=hist, unroll=8, interpret=True)
+        hist=hist, interpret=True)
     np.testing.assert_array_equal(np.asarray(out).T, ref)
 
 
@@ -90,122 +93,6 @@ def test_fixed_integrate_matches_scalar():
     np.testing.assert_array_equal(out.astype(np.int64), expected)
 
 
-def test_rice16_kernel_interpret_matches_math():
-    """The rice16 Pallas kernel BODY in interpret mode == the shared
-    jnp math on a real packed chunk, so CPU-only CI executes the actual
-    kernel code path (the reference's debug+release dual test pass,
-    /root/reference/.github/workflows/tests.yml)."""
-    import jax
-    import jax.numpy as jnp
-    from zflac_tpu.bitio import BitReader
-    from zflac_tpu.encoder import EncoderConfig, encode
-    from zflac_tpu.index.native_indexer import (native_available,
-                                                pack2_range)
-    from zflac_tpu.oracle import parse_metadata
-    from zflac_tpu.ops.rice16 import (_unpack16_math,
-                                      rice16_unpack_inline)
-    from zflac_tpu.testing import correlated_stereo
-
-    if not native_available():
-        pytest.skip("native indexer unavailable")
-    pcm = correlated_stereo(16384, 16, seed=11)
-    data = encode(pcm, 44100, 16, EncoderConfig(block_size=2048))
-    br = BitReader(data)
-    info = parse_metadata(br)
-    ck = pack2_range(data, br.pos // 8, len(data), info)
-    assert ck is not None
-    W, NG = ck.W, ck.NGp
-    win = jnp.asarray(
-        ck.buf[ck.off["win"]:ck.off["win"] + W * NG]
-        .reshape(W, NG).view(np.uint32))
-    meta = jnp.asarray(
-        ck.buf[ck.off["meta"]:ck.off["meta"] + NG].reshape(1, NG))
-    ref = np.asarray(jax.jit(_unpack16_math)(win, meta))
-    got = np.asarray(rice16_unpack_inline(win, meta, lanes=NG,
-                                          interpret=True))
-    np.testing.assert_array_equal(got, ref)
-
-
-def test_rice16_rows_kernel_4d_interpret_matches_math():
-    """The production 4-D sublane-tiled rows kernel (full-vreg math on
-    (8, 128) tiles) in interpret mode == the flat reference math,
-    including the time-major output BlockSpec mapping. Ssort=1024
-    triggers the 4-D path; a synthetic group mix covers rice, escape,
-    invalid, and skip lanes."""
-    import jax
-    import jax.numpy as jnp
-    from zflac_tpu.ops.rice16 import (K2_ESCAPE, K2_INVALID,
-                                      rice16_unpack_rows_inline,
-                                      unpack16_rows_math)
-
-    rng = np.random.default_rng(5)
-    W, SS, GP1 = 8, 1024, 6
-    NG = GP1 * SS
-    win = jnp.asarray(rng.integers(0, 1 << 32, (W, NG),
-                                   dtype=np.uint32))
-    k6 = rng.integers(0, 9, NG)
-    k6[rng.random(NG) < 0.1] = K2_ESCAPE
-    k6[rng.random(NG) < 0.1] = K2_INVALID
-    depth = rng.integers(0, 12, NG)
-    skip = np.where(rng.random(NG) < 0.05,
-                    rng.integers(0, 8, NG), 0)
-    pos0 = rng.integers(0, 32, NG)
-    meta = jnp.asarray(
-        (pos0 | (k6 << 5) | (depth << 11) | (skip << 16))
-        .astype(np.int32)[None, :])
-    ref = np.asarray(jax.jit(
-        lambda w, m: unpack16_rows_math(w, m, Ssort=SS))(win, meta))
-    got = np.asarray(jax.jit(
-        lambda w, m: rice16_unpack_rows_inline(
-            w, m, Ssort=SS, interpret=True))(win, meta))
-    np.testing.assert_array_equal(got, ref)
-
-
-def test_packtail_kernel_interpret_matches_xla_tail():
-    """The fused gather+decorrelate+pack tail kernel (scalar-prefetch
-    BlockSpecs, ops/packtail.py) in interpret mode == the XLA tail on
-    a real mid-side chunk."""
-    import jax
-    import jax.numpy as jnp
-
-    from zflac_tpu.bitio import BitReader
-    from zflac_tpu.encoder import EncoderConfig, encode
-    from zflac_tpu.index.native_indexer import (native_available,
-                                                pack2_range)
-    from zflac_tpu.oracle import parse_metadata
-    from zflac_tpu.ops.packtail import packtail_inline
-    from zflac_tpu.runtime.device import _reconstruct_pack2_core
-    from zflac_tpu.testing import correlated_stereo
-
-    if not native_available():
-        pytest.skip("native indexer unavailable")
-    pcm = correlated_stereo(40000, 16, seed=21)
-    data = encode(pcm, 44100, 16,
-                  EncoderConfig(block_size=1024, stereo_mode="mid_side"))
-    br = BitReader(data)
-    info = parse_metadata(br)
-    ck = pack2_range(data, br.pos // 8, len(data), info,
-                     max_frames=1 << 20)
-    assert ck is not None
-    spec = ck.spec_key()
-    (Fp, Sp, Bp, *_rest) = spec
-    off = dict(spec[9])
-    buf = jnp.asarray(ck.device_buf)
-    run = lambda **kw: jax.jit(  # noqa: E731
-        lambda b: _reconstruct_pack2_core(
-            b, spec=spec, num_channels=2, container_bits=16,
-            do_decorrelate=True, use_pallas=False, **kw))(buf)
-    ref = np.asarray(run())
-    stack = run(stage="transpose")
-    packed = jax.jit(lambda s, i, w, c: packtail_inline(
-        s, i, w, c, Fp=Fp, container_bits=16, interpret=True))(
-        stack, jnp.asarray(ck.buf[off["inv"]:off["inv"] + Sp]),
-        jnp.asarray(ck.buf[off["wasted"]:off["wasted"] + Sp]),
-        jnp.asarray(ck.buf[off["chcode"]:off["chcode"] + Fp]))
-    got = np.asarray(jax.lax.bitcast_convert_type(packed, jnp.int16))
-    np.testing.assert_array_equal(got, ref)
-
-
 def _numpy_lpc64(rows, cf, shift, order):
     """Scalar reference of the 64-bit-accumulator LPC recurrence
     (InterType i64, zflac.zig:314-319,526-533)."""
@@ -221,16 +108,16 @@ def _numpy_lpc64(rows, cf, shift, order):
     return out
 
 
-def test_lpc2w_kernel_interpret_matches_numpy64():
-    """The wide (hi/lo dual-int32) Pallas LPC kernel BODY in interpret
-    mode == a scalar int64 reference and the lax.scan twin, on values
-    whose dot products exceed 32 bits (the high-res domain)."""
-    from zflac_tpu.ops.lpc2w import (lpc2w_reconstruct_inline,
-                                     lpc2w_scan)
-    import jax.numpy as jnp
+def _numpy_lpc64_33(rows_hi, rows_lo, cf, shift, order):
+    """Scalar reference of the 33-bit-sample recurrence: samples are
+    (hi, lo) int64 values, accumulator int64."""
+    rows = (rows_hi.astype(np.int64) << 32) | (
+        rows_lo.astype(np.int64) & 0xFFFFFFFF)
+    return _numpy_lpc64(rows, cf, shift, order)
 
-    rng = np.random.default_rng(13)
-    S, B, hist = 128, 64, 8
+
+def _wide_case(seed, S, B, hist):
+    rng = np.random.default_rng(seed)
     order = rng.integers(1, hist + 1, S).astype(np.int32)
     shift = np.full(S, 14, np.int32)
     cf = np.zeros((S, hist), np.int32)
@@ -239,16 +126,103 @@ def test_lpc2w_kernel_interpret_matches_numpy64():
         o = order[s]
         # sum|c| <= 2^14 = 2^shift keeps the recurrence contractive so
         # true samples stay in int32 while products reach ~2^40.
-        c = rng.integers(-2048, 2049, o)
-        cf[s, :o] = c
+        lim = 2048 * 8 // hist
+        cf[s, :o] = rng.integers(-lim, lim + 1, o)
         rows[s, :o] = rng.integers(-2**29, 2**29, o)      # warm-ups
         rows[s, o:] = rng.integers(-1024, 1025, B - o)     # residuals
+    return rows, cf, shift, order
+
+
+def test_lpc2w_kernel_interpret_matches_numpy64():
+    """The wide (hi/lo dual-int32) GPU LPC kernel in interpret mode and
+    its lax.scan twin == a scalar int64 reference, on values whose dot
+    products exceed 32 bits (the high-res domain)."""
+    from zflac_tpu.ops.lpc2w import lpc2w_scan
+    from zflac_tpu.ops.lpc_triton import lpc_triton_wide
+
+    hist = 8
+    rows, cf, shift, order = _wide_case(13, 128, 64, hist)
     ref = _numpy_lpc64(rows, cf, shift, order)
     assert np.abs(ref).max() < 2**31  # in the kernel's exactness domain
     args = (jnp.asarray(rows.T.copy()), jnp.asarray(cf.T.copy()),
             jnp.asarray(shift[None, :]), jnp.asarray(order[None, :]))
     got_scan = np.asarray(lpc2w_scan(*args, hist=hist)).T
     np.testing.assert_array_equal(got_scan, ref)
-    got_kern = np.asarray(lpc2w_reconstruct_inline(
-        *args, lanes=S, hist=hist, unroll=8, interpret=True)).T
+    got_kern = np.asarray(lpc_triton_wide(*args, hist=hist,
+                                          interpret=True)).T
     np.testing.assert_array_equal(got_kern, ref)
+
+
+@pytest.mark.parametrize("hist", [8, 16, 32])
+def test_lpc2w_scan_matches_numpy64(hist):
+    """The plain wide scan == the scalar int64 recurrence for every
+    history bucket (kept whether or not the kernel is used)."""
+    from zflac_tpu.ops.lpc2w import lpc2w_scan
+
+    rows, cf, shift, order = _wide_case(hist, 64, 96, hist)
+    ref = _numpy_lpc64(rows, cf, shift, order)
+    got = np.asarray(lpc2w_scan(
+        jnp.asarray(rows.T.copy()), jnp.asarray(cf.T.copy()),
+        jnp.asarray(shift[None, :]), jnp.asarray(order[None, :]),
+        hist=hist)).T
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("hist", [8, 16, 32])
+def test_lpc2w33_scan_matches_numpy64(hist):
+    """The 33-bit scan == the scalar int64 recurrence on samples past
+    int32 (the side channel of 32-bit stereo): warm-ups and residuals
+    span +-2^32, outputs reassembled from (hi, lo)."""
+    from zflac_tpu.ops.lpc2w import lpc2w33_scan
+
+    rng = np.random.default_rng(100 + hist)
+    S, B = 64, 96
+    rows, cf, shift, order = _wide_case(hist + 1, S, B, hist)
+    # Contractive coefficients with 33-bit warm-ups keep |out| < 2^33.
+    big = rng.integers(-2**32, 2**32, (S, B))
+    warm = np.arange(B)[None, :] < order[:, None]
+    rows64 = np.where(warm, big, rows.astype(np.int64))
+    hi = (rows64 >> 32).astype(np.int32)
+    lo = (rows64 & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    ref = _numpy_lpc64_33(hi, lo, cf, shift, order)
+    assert np.abs(ref).max() < 2**33
+    oh, ol = lpc2w33_scan(
+        jnp.asarray(hi.T.copy()), jnp.asarray(lo.T.copy()),
+        jnp.asarray(cf.T.copy()), jnp.asarray(shift[None, :]),
+        jnp.asarray(order[None, :]), hist=hist)
+    got = (np.asarray(oh).T.astype(np.int64) << 32) | (
+        np.asarray(ol).T.astype(np.int64) & 0xFFFFFFFF)
+    np.testing.assert_array_equal(got, ref)
+
+
+class _Dev:
+    def __init__(self, platform):
+        self.platform = platform
+
+
+@pytest.mark.parametrize("platforms,want", [
+    (["cpu"], "cpu"), (["gpu"], "gpu"), (["gpu"] * 4, "gpu"),
+    (["metal"], None), (["gpu", "cpu"], None), (["rocm"], None)])
+def test_backend_chooser(platforms, want):
+    """cpu -> the plain XLA math, gpu -> the kernels; any other or a
+    mixed set of platforms raises instead of falling back."""
+    from zflac_tpu.runtime.backend import backend
+
+    devs = [_Dev(p) for p in platforms]
+    if want is None:
+        with pytest.raises(ValueError):
+            backend(devs)
+    else:
+        assert backend(devs) == want
+
+
+def test_backend_chooser_default_device():
+    """Without devices the chooser answers for the default device,
+    including under jax.default_device."""
+    import jax
+
+    from zflac_tpu.runtime.backend import backend
+
+    assert backend() == "cpu"
+    with jax.default_device(jax.devices("cpu")[0]):
+        assert backend() == "cpu"

@@ -81,9 +81,9 @@ def _device_and_sharded(data, n_dev=2):
 
 
 def test_device_blocksize_65535():
-    """Block size 65535 (Bp 65536) through the device paths: the time
-    tile gcd, VMEM envelopes, and chunk estimates must all hold at the
-    format maximum (std_uncommon.zig:33-51)."""
+    """Block size 65535 (Bp 65536) through the device paths: the
+    padded geometry and chunk estimates must hold at the format maximum
+    (std_uncommon.zig:33-51)."""
     pcm = tone_mix(65535 + 1000, 1, 16, seed=24)
     data = encode(pcm, 44100, 16,
                   EncoderConfig(block_size=65535, max_lpc_order=2))

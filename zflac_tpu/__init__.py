@@ -1,15 +1,16 @@
-"""zflac_tpu — a TPU-native FLAC (RFC 9639) decode engine.
+"""zflac_tpu — a FLAC (RFC 9639) decode engine with a device-resident
+GPU path.
 
 Brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 Zig decoder (Senryoku/zflac): `decode(data) -> DecodedFLAC` plus the full
-typed error set, scaled from one TPU chip to multi-host pod slices by
-sharding frames across a device mesh.
+typed error set, scaled from one device to several by sharding frames
+across a device mesh.
 
 Architecture (two-phase, SURVEY.md §7):
   1. host frame indexer (C++ native, numpy fallback) walks the serial
      bitstream once and emits a *frame table* (plan arrays);
   2. residual unpack + fixed/LPC reconstruction + stereo decorrelation
-     run as vectorized int kernels (XLA + Pallas) batched across all
+     run as vectorized int kernels (XLA + Pallas/Triton) batched across all
      subframes of the stream, sharded over the mesh for long streams.
 """
 
@@ -90,7 +91,7 @@ def decode_to_device(data, **kwargs):
     """Decode to device-resident PCM (the pack2 fast path: C++
     measure-only scan -> one packed buffer -> one dispatch per chunk;
     runtime/device.py). Returns a DeviceDecoded whose chunks live in
-    HBM, or None when the fast path declines (fall back to
+    device memory, or None when the fast path declines (fall back to
     decode(engine="tpu"))."""
     from .runtime.device import decode_to_device as _dd
     if not isinstance(data, (bytes, bytearray, memoryview)):

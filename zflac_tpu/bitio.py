@@ -8,7 +8,7 @@ one bit), `align_to_byte` == alignToByte (bit_reader.zig:90-93).
 
 Unlike the reference (streaming, 8-bit internal buffer) this reader
 addresses an in-memory buffer by absolute bit position, which is what the
-two-phase TPU design needs: every structure's *bit offset* is a first-class
+two-phase design needs: every structure's *bit offset* is a first-class
 value that the indexer records into the frame table.
 
 BitWriter is the encoder-side mirror (no reference equivalent; zflac is

@@ -1,7 +1,7 @@
 """Command-line interface: decode / inspect / verify FLAC streams.
 
 The analog of the reference's example app (zaudio playback,
-/root/reference/examples/example.zig) for a headless TPU host: decode to
+/root/reference/examples/example.zig) for a headless host: decode to
 WAV or raw PCM, print stream structure (the frame table doubles as a
 seek table), and verify integrity.
 

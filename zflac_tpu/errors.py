@@ -1,4 +1,4 @@
-"""Typed error set for the TPU-native FLAC engine.
+"""Typed error set for the FLAC engine.
 
 Mirrors the reference decoder's error API one-for-one (zflac's Zig error
 union values, see /root/reference/src/zflac.zig):

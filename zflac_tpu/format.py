@@ -3,7 +3,7 @@ layout rule the engine needs, in one place.
 
 This encodes the same format facts the reference derives from its enums
 (/root/reference/src/zflac.zig:57-185) but as plain data so that the host
-indexer (Python and C++), the oracle decoder, the encoder, and the TPU
+indexer (Python and C++), the oracle decoder, the encoder, and the device
 kernels all share a single source of truth.
 """
 

@@ -1,6 +1,6 @@
 """Host frame indexer: the serial phase-1 pass that walks the FLAC
 bitstream once and emits the dense decode plan (plan.StreamPlan) that the
-batched TPU kernels consume.
+batched device kernels consume.
 
 Two implementations with identical semantics (differential-tested):
   * native C++ scanner (index/native/) — the production path
@@ -14,7 +14,7 @@ def build_plan(data: bytes, check_crc: bool = False, prefer_native=True,
                emit_groups: bool = False):
     """Index a stream into a StreamPlan using the fastest available
     implementation. emit_groups records the Rice-group offset table for
-    the TPU bit-unpack kernel (native indexer only)."""
+    the group-table bit-unpack reference (native indexer only)."""
     if prefer_native:
         try:
             from .native_indexer import build_plan_native, native_available

@@ -371,7 +371,7 @@ def _as_array(ptr, shape, dtype):
 def build_plan_native(data: bytes, check_crc: bool = False,
                       emit_groups: bool = False) -> StreamPlan:
     """emit_groups: also record the Rice-group offset table consumed by
-    the TPU bit-unpack kernel (ops/rice.py)."""
+    the group-table bit-unpack reference (ops/rice.py)."""
     lib = _load()
     assert lib is not None
     plan = _Plan()

@@ -4,7 +4,7 @@ C++ scanner).
 Walks the serial bitstream once (the only inherently sequential pass —
 SURVEY.md §7 fact 1) and emits the dense StreamPlan: warmup-seeded
 residual rows, predictor descriptors, and frame geometry. No sample
-reconstruction happens here — that is phase 2, on the TPU.
+reconstruction happens here — that is phase 2, on the device.
 
 Bitstream semantics mirror /root/reference/src/zflac.zig:312-666; see
 oracle.py for the scalar reference decoder that shares the header

@@ -1,12 +1,13 @@
-"""Pallas TPU kernel for the batched LPC recurrence, wide variant.
+"""Wide LPC recurrence: 64-bit accumulator semantics on int32 pairs.
 
 High-res streams (17-32 bps; container int32) need the reference's
-64-bit LPC accumulator semantics (InterType i64 for i24/i32 outputs,
-/root/reference/src/zflac.zig:314-319,526-533): the `>> shift` must see
-the exact 64-bit dot-product sum, not an int32-wrapped one. Mosaic has
-no int64, so this kernel carries the transposed-form partial-sum
-pipeline of ops/lpc2.py as a dual-int32 (hi/lo) pair and emulates the
-three 64-bit operations it needs:
+64-bit LPC accumulator (InterType i64 for i24/i32 outputs,
+zflac.zig:314-319,526-533): the `>> shift` must see the exact 64-bit
+dot-product sum, not an int32-wrapped one. The recurrence runs in the
+*transposed direct form* (ops/lpc_triton.py): a pipeline P[hist] of
+partial predictions, P[r] = prediction for time t+r from samples < t,
+carried as a dual-int32 (hi/lo) pair. Three 64-bit operations are
+emulated:
 
   * accumulate  P += out * c   — the 32x16 split product
     c*out = c*(out & 0xFFFF) + (c*(out >> 16) << 16); both partials are
@@ -19,6 +20,9 @@ three 64-bit operations it needs:
     int32 (samples are <= 32 significant bits), so only the low word is
     needed.
 
+Every shift amount stays in [0, 31], so the math is defined both in
+XLA and in the Triton kernels, which share these helpers.
+
 Exactness domain (matches what the C++ pack2 scan admits): every
 subframe's true sample values fit int32 (sub_bps <= 32 — 32-bit
 side-channel subframes are declined by the scan), residuals fit int32
@@ -28,21 +32,14 @@ Within that domain every product, the 64-bit accumulator (<= 52 bits),
 and the shifted prediction are exact, so outputs are bit-identical to
 the reference's i64 recurrence.
 
-The same step math runs as a lax.scan (`lpc2w_scan`) on non-TPU
-backends, keeping CPU tests and the TPU kernel on one implementation.
+`lpc2w_scan` / `lpc2w33_scan` are the plain XLA forms (the CPU path and
+the references of the kernels).
 """
 
 from __future__ import annotations
 
-import functools
-import math
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .vma import out_struct
 
 
 def _u32(x):
@@ -55,130 +52,78 @@ def _i32(x):
 
 def _carry(a_u, b_u, s_u):
     """Carry-out of the uint32 add s = a + b, as int32 0/1 (bitwise:
-    no unsigned compares, which keeps Mosaic lowering trivial)."""
+    no unsigned compares)."""
     return _i32(((a_u & b_u) | ((a_u | b_u) & ~s_u)) >> 31)
 
 
-def _wide_step(P_hi, P_lo, res_row, cfwd, shift_u, order, t, zhi, zlo):
-    """One time step of the wide transposed-form recurrence.
+def add64(a_hi, a_lo, b_hi, b_lo):
+    """(a + b) on (hi int32, lo uint32) pairs."""
+    lo = a_lo + b_lo
+    return a_hi + b_hi + _carry(a_lo, b_lo, lo), lo
 
-    P_hi [hist, L] int32 / P_lo [hist, L] uint32: 64-bit partial
-    predictions (P[r] = prediction for time t+r from samples < t);
-    res_row [1, L] int32; cfwd [hist, L] int32 (row r = c_{r+1});
-    shift_u [1, L] uint32; order [1, L] int32; t: int (static) or [1,1]
-    traced step index. Returns (out_row, P_hi, P_lo)."""
-    # pred = (acc64 >> shift) mod 2^32 — funnel shift of (hi, lo).
-    # (hi << 1) << (31 - s) == hi << (32 - s), defined for s == 0.
-    hi0_u = _u32(P_hi[0:1])
-    pred = _i32((P_lo[0:1] >> shift_u) |
-                ((hi0_u << 1) << (jnp.uint32(31) - shift_u)))
-    out = jnp.where(t >= order, res_row + pred, res_row)
 
-    # contribution c * out as 64-bit hi/lo (32x16 split product).
-    lo16 = out & 0xFFFF             # [1, L] in [0, 65535]
-    hi16 = out >> 16                # [1, L] arithmetic
-    p1 = cfwd * lo16                # [hist, L] exact (<= 2^30)
-    p2 = cfwd * hi16                # [hist, L] exact (<= 2^30)
+def shr64_lo(hi, lo, shift_u):
+    """Low word of the arithmetic shift (hi, lo) >> shift, shift in
+    [0, 31]: (hi << 1) << (31 - s) == hi << (32 - s), defined at 0."""
+    return (lo >> shift_u) | ((_u32(hi) << 1) << (jnp.uint32(31) - shift_u))
+
+
+def mul64(c, out):
+    """c * out as a (hi, lo) pair for int32 `out` and |c| < 2^15."""
+    lo16 = out & 0xFFFF             # [0, 65535]
+    hi16 = out >> 16                # arithmetic
+    p1 = c * lo16                   # exact (<= 2^30)
+    p2 = c * hi16                   # exact (<= 2^30)
     p1u = _u32(p1)
     p2lo = _u32(p2) << 16
     vlo = p1u + p2lo
-    vhi = (p1 >> 31) + (p2 >> 16) + _carry(p1u, p2lo, vlo)
-
-    # Rolling pipeline: drop the consumed head, add the contribution.
-    Phs = jnp.concatenate([P_hi[1:], zhi], axis=0)
-    Pls = jnp.concatenate([P_lo[1:], zlo], axis=0)
-    nlo = Pls + vlo
-    nhi = Phs + vhi + _carry(Pls, vlo, nlo)
-    return out, nhi, nlo
+    return (p1 >> 31) + (p2 >> 16) + _carry(p1u, p2lo, vlo), vlo
 
 
-def _lpc2w_kernel(rows_ref, cfwd_ref, shift_ref, order_ref, out_ref,
-                  Ph_scr, Pl_scr, *, hist: int, unroll: int, tt: int):
-    """Time-tiled like _lpc2_kernel (ops/lpc2.py): the hi/lo pipeline
-    state carries across time tiles in two VMEM scratch buffers."""
-    L = rows_ref.shape[1]
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        Ph_scr[...] = jnp.zeros((hist, L), jnp.int32)
-        Pl_scr[...] = jnp.zeros((hist, L), jnp.uint32)
-
-    cfwd = cfwd_ref[:, :]
-    shift_u = _u32(shift_ref[:, :])
-    order = order_ref[:, :]
-    zhi = jnp.zeros((1, L), jnp.int32)
-    zlo = jnp.zeros((1, L), jnp.uint32)
-    t0 = j * tt
-
-    def step(carry):
-        i, P_hi, P_lo = carry
-        t = pl.multiple_of(i * unroll, unroll)
-        res = rows_ref[pl.ds(t, unroll), :]
-        outs = []
-        for u in range(unroll):
-            out, P_hi, P_lo = _wide_step(
-                P_hi, P_lo, res[u:u + 1, :], cfwd, shift_u, order,
-                t0 + t + u, zhi, zlo)
-            outs.append(out)
-        out_ref[pl.ds(t, unroll), :] = jnp.concatenate(outs, axis=0)
-        return i + jnp.int32(1), P_hi, P_lo
-
-    _, P_hi, P_lo = jax.lax.while_loop(
-        lambda c: c[0] < jnp.int32(tt // unroll), step,
-        (jnp.int32(0), Ph_scr[...], Pl_scr[...]))
-    Ph_scr[...] = P_hi
-    Pl_scr[...] = P_lo
+def mul64_33(c, out_hi, out_lo):
+    """c * out for a 33-bit-capable (hi, lo) sample: the product splits
+    three ways (lo16, mid16, hi) because out >> 16 no longer fits 16
+    bits; |hi| <= 1 for admitted streams, so every partial is exact."""
+    lo16 = _i32(out_lo) & 0xFFFF
+    mid16 = _i32(out_lo >> jnp.uint32(16))
+    p1 = c * lo16
+    p2 = c * mid16
+    p1u = _u32(p1)
+    p2lo = _u32(p2) << 16
+    vlo = p1u + p2lo
+    vhi = (p1 >> 31) + (p2 >> 16) + _carry(p1u, p2lo, vlo) + c * out_hi
+    return vhi, vlo
 
 
-def lpc2w_reconstruct_inline(rows_t, cfwd_t, shift, order, *,
-                             lanes: int = 512, hist: int = 8,
-                             unroll: int = 8, tt: int = 512,
-                             interpret: bool = False):
-    """Wide-accumulator twin of ops/lpc2.lpc2_reconstruct_inline: same
-    layout (rows_t [B, S] int32 time-major, cfwd_t [hist, S] forward
-    coefficients, shift/order [1, S]), 64-bit accumulator semantics.
-    Not jitted: inline under the caller's jit."""
-    B, S = rows_t.shape
-    # gcd, not min: tt must divide B (see ops/lpc2.py).
-    tt = math.gcd(B, tt)
-    assert S % lanes == 0 and B % tt == 0 and tt % unroll == 0
-    assert unroll % 8 == 0, "sublane alignment requires unroll % 8 == 0"
-    assert cfwd_t.shape[0] == hist
-    grid = (S // lanes, B // tt)
-    kernel = functools.partial(_lpc2w_kernel, hist=hist, unroll=unroll,
-                               tt=tt)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tt, lanes), lambda i, j: (j, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((hist, lanes), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lanes), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lanes), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tt, lanes), lambda i, j: (j, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=out_struct((B, S), jnp.int32, rows_t, cfwd_t,
-                             shift, order),
-        scratch_shapes=[pltpu.VMEM((hist, lanes), jnp.int32),
-                        pltpu.VMEM((hist, lanes), jnp.uint32)],
-        interpret=interpret,
-    )(rows_t, cfwd_t, shift, order)
+def wide_out(P_hi0, P_lo0, res, shift_u, warm):
+    """One output sample of the wide recurrence from the pipeline head."""
+    pred = _i32(shr64_lo(P_hi0, P_lo0, shift_u))
+    return jnp.where(warm, res, res + pred)
+
+
+def wide33_out(P_hi0, P_lo0, res_hi, res_lo, shift_u, shift_i, warm):
+    """One (hi, lo) output sample of the 33-bit recurrence."""
+    pred_lo = shr64_lo(P_hi0, P_lo0, shift_u)
+    pred_hi = P_hi0 >> shift_i            # arithmetic
+    sum_hi, sum_lo = add64(res_hi, res_lo, pred_hi, pred_lo)
+    return (jnp.where(warm, res_hi, sum_hi),
+            jnp.where(warm, res_lo, sum_lo))
+
+
+def _roll_add(P_hi, P_lo, v_hi, v_lo):
+    """Drop the consumed pipeline head and add this sample's
+    contribution (array form: P [hist, L])."""
+    Phs = jnp.concatenate([P_hi[1:], jnp.zeros_like(P_hi[:1])], axis=0)
+    Pls = jnp.concatenate([P_lo[1:], jnp.zeros_like(P_lo[:1])], axis=0)
+    return add64(Phs, Pls, v_hi, v_lo)
 
 
 def lpc2w_scan(rows_t, cfwd_t, shift, order, *, hist: int = 32):
-    """lax.scan reference of the wide recurrence (non-TPU backends and
-    differential tests): same arguments/layout as the kernel, same
-    step math (_wide_step), no int64 anywhere."""
-    B, S = rows_t.shape
+    """lax.scan form of the wide recurrence: rows_t [B, S] int32
+    time-major (warm-ups at t < order, residuals after); cfwd_t
+    [hist, S] with row r = c_{r+1} (the coefficient of s[t-1-r]);
+    shift/order [1, S]. Returns the signal [B, S] int32. No int64."""
     shift_u = _u32(shift)
-    zhi = jnp.zeros((1, S), jnp.int32)
-    zlo = jnp.zeros((1, S), jnp.uint32)
     # Derived from rows (not fresh constants) so that under shard_map
     # the carry inherits the varying-axis type of the sharded inputs.
     P_hi0 = jnp.tile(rows_t[:1] * 0, (hist, 1))
@@ -187,172 +132,35 @@ def lpc2w_scan(rows_t, cfwd_t, shift, order, *, hist: int = 32):
     def step(carry, xs):
         P_hi, P_lo = carry
         t, res_row = xs
-        out, P_hi, P_lo = _wide_step(
-            P_hi, P_lo, res_row[None, :], cfwd_t, shift_u, order, t,
-            zhi, zlo)
-        return (P_hi, P_lo), out[0]
+        out = wide_out(P_hi[0:1], P_lo[0:1], res_row[None, :], shift_u,
+                       t < order)
+        v_hi, v_lo = mul64(cfwd_t, out)
+        return _roll_add(P_hi, P_lo, v_hi, v_lo), out[0]
 
-    ts = jnp.arange(B, dtype=jnp.int32)
+    ts = jnp.arange(rows_t.shape[0], dtype=jnp.int32)
     _, outs = jax.lax.scan(step, (P_hi0, P_lo0), (ts, rows_t))
     return outs
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("lanes", "hist", "unroll", "interpret"))
-def lpc2w_reconstruct_tpu(rows_t, cfwd_t, shift, order, lanes=512, hist=8,
-                          unroll=8, interpret=False):
-    return lpc2w_reconstruct_inline(rows_t, cfwd_t, shift, order,
-                                    lanes=lanes, hist=hist, unroll=unroll,
-                                    interpret=interpret)
-
-
-# ---------------------------------------------------------------------
-# 33-bit sample variant (wide pack2 chunks): the reconstructed samples
-# themselves exceed int32 (side channel of a 32-bit stream), so the
-# recurrence carries BOTH words of every sample. Differences from the
-# base kernel: residuals/outputs are (hi, lo) pairs; the shifted
-# prediction keeps its hi word; and the product c * out splits three
-# ways (lo16, mid16, hi) because out >> 16 no longer fits 16 bits:
-#   c*out = c*lo16 + (c*mid16 << 16) + (c*hi << 32)
-# with |c| < 2^15, lo16/mid16 in [0, 2^16), and |hi| <= 1 for admitted
-# streams — every partial exact in int32.
-# ---------------------------------------------------------------------
-
-
-def _wide_step33(P_hi, P_lo, res_hi, res_lo, cfwd, shift_u, shift_i,
-                 order, t, zhi, zlo):
-    """One time step with 33-bit-capable samples. res_hi [1, L] int32,
-    res_lo [1, L] uint32. Returns (out_hi, out_lo, P_hi, P_lo)."""
-    hi0_u = _u32(P_hi[0:1])
-    pred_lo = (P_lo[0:1] >> shift_u) | \
-        ((hi0_u << 1) << (jnp.uint32(31) - shift_u))
-    pred_hi = P_hi[0:1] >> shift_i            # arithmetic
-    sum_lo = res_lo + pred_lo
-    sum_hi = res_hi + pred_hi + _carry(res_lo, pred_lo, sum_lo)
-    warm = t < order
-    out_hi = jnp.where(warm, res_hi, sum_hi)
-    out_lo = jnp.where(warm, res_lo, sum_lo)
-
-    out_lo_i = _i32(out_lo)
-    lo16 = out_lo_i & 0xFFFF
-    mid16 = _i32(out_lo >> jnp.uint32(16))
-    p1 = cfwd * lo16
-    p2 = cfwd * mid16
-    p3 = cfwd * out_hi
-    p1u = _u32(p1)
-    p2lo = _u32(p2) << 16
-    vlo = p1u + p2lo
-    vhi = (p1 >> 31) + (p2 >> 16) + _carry(p1u, p2lo, vlo) + p3
-
-    Phs = jnp.concatenate([P_hi[1:], zhi], axis=0)
-    Pls = jnp.concatenate([P_lo[1:], zlo], axis=0)
-    nlo = Pls + vlo
-    nhi = Phs + vhi + _carry(Pls, vlo, nlo)
-    return out_hi, out_lo, nhi, nlo
-
-
-def _lpc2w33_kernel(rows_hi_ref, rows_lo_ref, cfwd_ref, shift_ref,
-                    order_ref, out_hi_ref, out_lo_ref, Ph_scr, Pl_scr,
-                    *, hist: int, unroll: int, tt: int):
-    L = rows_lo_ref.shape[1]
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        Ph_scr[...] = jnp.zeros((hist, L), jnp.int32)
-        Pl_scr[...] = jnp.zeros((hist, L), jnp.uint32)
-
-    cfwd = cfwd_ref[:, :]
-    shift_i = shift_ref[:, :]
-    shift_u = _u32(shift_i)
-    order = order_ref[:, :]
-    zhi = jnp.zeros((1, L), jnp.int32)
-    zlo = jnp.zeros((1, L), jnp.uint32)
-    t0 = j * tt
-
-    def step(carry):
-        i, P_hi, P_lo = carry
-        t = pl.multiple_of(i * unroll, unroll)
-        res_h = rows_hi_ref[pl.ds(t, unroll), :]
-        res_l = _u32(rows_lo_ref[pl.ds(t, unroll), :])
-        outs_h = []
-        outs_l = []
-        for u in range(unroll):
-            oh, ol, P_hi, P_lo = _wide_step33(
-                P_hi, P_lo, res_h[u:u + 1, :], res_l[u:u + 1, :],
-                cfwd, shift_u, shift_i, order, t0 + t + u, zhi, zlo)
-            outs_h.append(oh)
-            outs_l.append(_i32(ol))
-        out_hi_ref[pl.ds(t, unroll), :] = jnp.concatenate(outs_h, axis=0)
-        out_lo_ref[pl.ds(t, unroll), :] = jnp.concatenate(outs_l, axis=0)
-        return i + jnp.int32(1), P_hi, P_lo
-
-    _, P_hi, P_lo = jax.lax.while_loop(
-        lambda c: c[0] < jnp.int32(tt // unroll), step,
-        (jnp.int32(0), Ph_scr[...], Pl_scr[...]))
-    Ph_scr[...] = P_hi
-    Pl_scr[...] = P_lo
-
-
-def lpc2w33_reconstruct_inline(rows_hi_t, rows_lo_t, cfwd_t, shift,
-                               order, *, lanes: int = 512, hist: int = 8,
-                               unroll: int = 8, tt: int = 512,
-                               interpret: bool = False):
-    """33-bit-sample twin of lpc2w_reconstruct_inline: time-major
-    (hi, lo) residual rows in/out. rows int32 [B, S]; returns
-    (out_hi, out_lo) int32 [B, S]."""
-    from .vma import out_struct
-    B, S = rows_lo_t.shape
-    # gcd, not min: tt must divide B (see ops/lpc2.py).
-    tt = math.gcd(B, tt)
-    assert S % lanes == 0 and B % tt == 0 and tt % unroll == 0
-    assert unroll % 8 == 0
-    assert cfwd_t.shape[0] == hist
-    grid = (S // lanes, B // tt)
-    kernel = functools.partial(_lpc2w33_kernel, hist=hist,
-                               unroll=unroll, tt=tt)
-    tspec = lambda r: pl.BlockSpec((r, lanes), lambda i, j: (j, i),  # noqa: E731
-                                   memory_space=pltpu.VMEM)
-    cspec = lambda r: pl.BlockSpec((r, lanes), lambda i, j: (0, i),  # noqa: E731
-                                   memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[tspec(tt), tspec(tt), cspec(hist), cspec(1), cspec(1)],
-        out_specs=[tspec(tt), tspec(tt)],
-        out_shape=[
-            out_struct((B, S), jnp.int32, rows_hi_t, rows_lo_t, cfwd_t,
-                       shift, order),
-            out_struct((B, S), jnp.int32, rows_hi_t, rows_lo_t, cfwd_t,
-                       shift, order),
-        ],
-        scratch_shapes=[pltpu.VMEM((hist, lanes), jnp.int32),
-                        pltpu.VMEM((hist, lanes), jnp.uint32)],
-        interpret=interpret,
-    )(rows_hi_t, rows_lo_t, cfwd_t, shift, order)
-
-
 def lpc2w33_scan(rows_hi_t, rows_lo_t, cfwd_t, shift, order, *,
                  hist: int = 32):
-    """lax.scan reference of the 33-bit recurrence (CPU paths and
-    differential tests); same step math as the kernel."""
-    B, S = rows_lo_t.shape
-    shift_i = shift
-    shift_u = _u32(shift_i)
-    zhi = jnp.zeros((1, S), jnp.int32)
-    zlo = jnp.zeros((1, S), jnp.uint32)
+    """lax.scan form of the 33-bit-sample recurrence (wide pack2
+    chunks: the side channel of a 32-bit stream exceeds int32, so the
+    recurrence carries both words of every sample). Time-major (hi, lo)
+    residual rows in, (out_hi, out_lo) int32 [B, S] out."""
+    shift_u = _u32(shift)
     P_hi0 = jnp.tile(rows_lo_t[:1] * 0, (hist, 1))
     P_lo0 = _u32(P_hi0)
 
     def step(carry, xs):
         P_hi, P_lo = carry
         t, rh, rl = xs
-        oh, ol, P_hi, P_lo = _wide_step33(
-            P_hi, P_lo, rh[None, :], _u32(rl[None, :]), cfwd_t,
-            shift_u, shift_i, order, t, zhi, zlo)
-        return (P_hi, P_lo), (oh[0], _i32(ol[0]))
+        oh, ol = wide33_out(P_hi[0:1], P_lo[0:1], rh[None, :],
+                            _u32(rl[None, :]), shift_u, shift, t < order)
+        v_hi, v_lo = mul64_33(cfwd_t, oh, ol)
+        return _roll_add(P_hi, P_lo, v_hi, v_lo), (oh[0], _i32(ol[0]))
 
-    ts = jnp.arange(B, dtype=jnp.int32)
+    ts = jnp.arange(rows_lo_t.shape[0], dtype=jnp.int32)
     _, (outs_h, outs_l) = jax.lax.scan(
         step, (P_hi0, P_lo0), (ts, rows_hi_t, rows_lo_t))
     return outs_h, outs_l

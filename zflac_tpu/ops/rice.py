@@ -92,16 +92,16 @@ def _unpack_math(win, pos0, k, depth, skip):
                         jnp.uint32(0))
         zz = (q.astype(jnp.uint32) << kk) | rem
         # Zigzag decode in uint32 wraparound == the int32 bit pattern.
-        rice_val = pltpu_bitcast_i32(
+        rice_val = _bitcast_i32(
             (zz >> 1) ^ (jnp.uint32(0) - (zz & 1)))
         rice_adv = q + 1 + kk.astype(jnp.int32)
 
         # --- escape path: fixed-width signed residual ---
-        # int32 min (Mosaic lacks unsigned min); arithmetic shift
+        # int32 min (no unsigned min needed); arithmetic shift
         # sign-extends the depth-bit value.
         esc_shift = jnp.minimum(32 - depth, 31)
         esc_val = jnp.where(depth > 0,
-                            pltpu_bitcast_i32(chunk) >> esc_shift, 0)
+                            _bitcast_i32(chunk) >> esc_shift, 0)
         esc_adv = depth
 
         value = jnp.where(is_escape, esc_val, rice_val)
@@ -111,7 +111,7 @@ def _unpack_math(win, pos0, k, depth, skip):
     return jnp.concatenate(outs, axis=0)
 
 
-def pltpu_bitcast_i32(u):
+def _bitcast_i32(u):
     """uint32 -> int32 bit reinterpretation."""
     return jax.lax.bitcast_convert_type(u, jnp.int32)
 

@@ -1,45 +1,37 @@
-"""Pallas TPU Rice/bit-unpack kernel, v2 (pack2 path).
+"""Rice/bit-unpack of the pack2 buffer: residuals from per-group bit
+windows.
 
-Same measured-offset two-phase design as ops/rice.py (the host scan
-walks the serial bitstream once and records group offsets; extraction
-is then data-parallel over groups — SURVEY.md §7 fact 4), but with the
-geometry tuned from profiling the v1 kernel on TPU v5e:
+Measured-offset two-phase design (SURVEY.md §7 fact 4): the host scan
+walks the serial bitstream once and records, for every group of G2
+residuals, a window of W words and packed metadata; extraction is then
+data-parallel over groups.
 
-  * G2 = 8 residuals per group (round 3 used 16, but a 16-residual
-    span rarely fits an 8-word window on real streams, forcing W=16
-    and doubling the per-residual select-chain cost; at G2=8 the same
-    4 bytes/residual upload keeps W=8 and halves the fetch work);
+  * G2 = 8 residuals per group: a 16-residual span rarely fits an
+    8-word window on real streams, forcing W=16 and doubling the
+    per-residual select-chain cost;
   * the window is emitted by the C++ scan directly into the packed
-    device buffer (pack2_helpers.inc), so there is NO device-side
-    window gather (the v1 skim path's dominant cost: an XLA gather of
-    [W, NG] from the word table);
+    device buffer (pack2_helpers.inc), so there is no device-side
+    window gather;
   * W = 8 words per group (adaptively 16 for extreme-k streams),
     chosen by the scan from the measured spans — 4 bytes of upload per
     residual;
   * ONE 64-bit extract per residual: the host envelope guarantees
     q <= 40 and q + 1 + k <= 64, so the quotient, the terminator, and
-    the remainder all live in the 64 bits at the residual's start
-    (v1 performed a second full extract for the remainder);
+    the remainder all live in the 64 bits at the residual's start;
   * per-group metadata packed in one int32:
     pos0(5) | k(6: 0-31 rice, 62 escape, 63 invalid) | depth(5) |
     skip(5).
 
-Escaped partitions (fixed-width raw residuals) ride the same kernel.
+Escaped partitions (fixed-width raw residuals) ride the same math.
 Groups outside the envelope are invalidated by the host and patched
-from scan-recorded values. Mirrors the semantics of
-/root/reference/src/zflac.zig:635-666 (decode_residual_partition).
+from scan-recorded values. Mirrors the semantics of zflac.zig:635-666
+(decode_residual_partition).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .vma import out_struct
 
 G2 = 8  # must match kG2 in index/native/pack2_helpers.inc
 K2_ESCAPE = 62
@@ -75,12 +67,10 @@ def _select_word(win, wi, c_lo, c_hi):
 
 
 def _unpack16_list(win, meta):
-    """Shape-generic group extraction: win is indexable as win[c] with
-    the same (arbitrary) spatial shape as meta — [1, L] rows in the
-    flat layout, [8, 128] full-vreg tiles in the 4D sublane layout
-    (rice16_unpack_rows_inline). Returns a list of G2 arrays of
-    meta's shape (residual j of every group)."""
-    W = win.shape[0]
+    """Shape-generic group extraction: win[c] (c < W) has the same
+    spatial shape as meta. Returns a list of G2 arrays of meta's shape
+    (residual j of every group)."""
+    W = len(win)
     pos = meta & 31
     k6 = (meta >> 5) & 63
     depth = (meta >> 11) & 31
@@ -153,62 +143,12 @@ def _unpack16_math(win, meta):
         _unpack16_list(win[:, None, :], meta), axis=0)
 
 
-def _rice16_kernel(win_ref, meta_ref, out_ref):
-    out_ref[:, :] = _unpack16_math(win_ref[:, :], meta_ref[:, :])
-
-
-def rice16_unpack_inline(windows, meta, *, lanes: int = 2048,
-                         interpret: bool = False):
-    """windows: [W, NG] uint32; meta: [1, NG] int32 with NG a multiple
-    of `lanes`. Returns residuals [G2, NG] int32. Not jitted: inline
-    under the caller's jit."""
-    W, NG = windows.shape
-    assert NG % lanes == 0
-    grid = (NG // lanes,)
-    return pl.pallas_call(
-        _rice16_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((W, lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((G2, lanes), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=out_struct((G2, NG), jnp.int32, windows, meta),
-        interpret=interpret,
-    )(windows, meta)
-
-
-@functools.partial(jax.jit, static_argnames=("lanes", "interpret"))
-def rice16_unpack_tpu(windows, meta, lanes=2048, interpret=False):
-    return rice16_unpack_inline(windows, meta, lanes=lanes,
-                                interpret=interpret)
-
-
-# ---------------------------------------------------------------------
-# v3 rows layout: the C++ scan emits groups P-MAJOR (slot = p * Ssort +
-# sorted subframe), so the kernel's output BlockSpec can write the
-# TIME-MAJOR residual array [(GPB+1)*G2, Ssort] directly — row
-# t = p*G2 + j is time, lane is the sorted subframe. This is the layout
-# the LPC kernels consume, so the [G2,NGp]->[Ssort,Bp] relayout and the
-# transposes around the LPC kernels (v2's dominant XLA glue) vanish.
-# ---------------------------------------------------------------------
-
-
-def rows_lanes(Ssort: int) -> int:
-    """Widest lane-block dividing Ssort (Ssort is a sum of pow2
-    multiples of 128, hence always a multiple of 128)."""
-    for cand in (2048, 1024, 512, 256):
-        if Ssort % cand == 0:
-            return cand
-    return 128
-
-
 def unpack16_rows_math(win, meta, *, Ssort: int):
-    """CPU reference of the rows-layout kernel: the flat [G2, NGp]
-    math output re-laid to time-major [(NGp/Ssort)*G2, Ssort]."""
+    """Time-major residual rows: the C++ scan emits groups P-MAJOR
+    (slot = p * Ssort + sorted subframe), so the flat [G2, NGp] math
+    output re-lays to [(NGp/Ssort)*G2, Ssort] — row t = p*G2 + j is
+    time, the lane is the sorted subframe (the layout the LPC
+    reconstruction consumes)."""
     W, NGp = win.shape
     GP1 = NGp // Ssort
     out = _unpack16_math(win, meta)
@@ -216,78 +156,4 @@ def unpack16_rows_math(win, meta, *, Ssort: int):
         GP1 * G2, Ssort)
 
 
-def _rice16_kernel4(win_ref, meta_ref, out_ref):
-    """Full-vreg body: refs carry (8, 128) minor tiles, so every
-    per-residual op runs on complete vregs instead of [1, lanes] rows
-    (which occupy one sublane of each vreg — ~1/8 ALU utilization,
-    the dominant cost of the 2-D kernel)."""
-    win = win_ref[:, 0]                 # [W, 8, 128]
-    meta = meta_ref[0]                  # [8, 128]
-    outs = _unpack16_list(win, meta)
-    for j in range(G2):
-        out_ref[j, 0] = outs[j]
 
-
-def rice16_unpack_rows_inline(windows, meta, *, Ssort: int,
-                              lanes: int = 0, interpret: bool = False):
-    """windows: [W, NGp] uint32 with NGp = GP1 * Ssort (p-major slots);
-    meta: [1, NGp]. Returns time-major residuals [GP1 * G2, Ssort]
-    int32. Not jitted: inline under the caller's jit.
-
-    When Ssort is a multiple of 1024 (every production-size chunk),
-    the arrays are VIEWED 4-D — [.., NGp/1024, 8, 128] — so each grid
-    step's block is a stack of full (8, 128) vregs: the flat run of
-    1024 group slots at (s, l) = s*128 + l is exactly the row-major
-    (8, 128) tile, so the views are free and the kernel's elementwise
-    math uses all 8 sublanes. Measured ~3x on the v5e over the
-    [1, lanes]-row form. Small chunks keep the 2-D row layout."""
-    W, NGp = windows.shape
-    assert NGp % Ssort == 0
-    GP1 = NGp // Ssort
-    if Ssort % 1024 == 0:
-        NB = NGp // 1024                # total (8, 128) blocks
-        R4 = Ssort // 1024              # blocks per p-row
-        win4 = windows.reshape(W, NB, 8, 128)
-        meta4 = meta.reshape(NB, 8, 128)
-        out4 = pl.pallas_call(
-            _rice16_kernel4,
-            grid=(NB,),
-            in_specs=[
-                pl.BlockSpec((W, 1, 8, 128), lambda i: (0, i, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 8, 128), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            # Block i covers p-row i // R4, sorted-lane tile i % R4 of
-            # the time-major output (viewed 4-D over the same memory).
-            out_specs=pl.BlockSpec(
-                (G2, 1, 8, 128), lambda i: (i // R4, i % R4, 0, 0),
-                memory_space=pltpu.VMEM),
-            out_shape=out_struct((GP1 * G2, R4, 8, 128), jnp.int32,
-                                 windows, meta),
-            interpret=interpret,
-        )(win4, meta4)
-        return out4.reshape(GP1 * G2, Ssort)
-    if lanes <= 0:
-        lanes = rows_lanes(Ssort)
-    assert Ssort % lanes == 0
-    R = Ssort // lanes
-    grid = (NGp // lanes,)
-    return pl.pallas_call(
-        _rice16_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((W, lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        # Flat lane-block i covers groups of p-row i // R, sorted-lane
-        # block i % R: the [G2, lanes] block lands at time rows
-        # (i // R) * G2 of the time-major output.
-        out_specs=pl.BlockSpec((G2, lanes), lambda i: (i // R, i % R),
-                               memory_space=pltpu.VMEM),
-        out_shape=out_struct((GP1 * G2, Ssort), jnp.int32, windows,
-                             meta),
-        interpret=interpret,
-    )(windows, meta)

@@ -1,12 +1,11 @@
 """Varying-manual-axes plumbing for Pallas under shard_map.
 
-jax >= 0.9 checks that a `pallas_call` inside `jax.shard_map` declares
-how its outputs vary across mesh axes (`check_vma`); an out_shape
-without `vma` raises at trace time. Every kernel output here varies
-exactly like its inputs (each device's block is computed from that
-device's shard — there are no cross-device reads), so the out struct's
-vma is the union of the input vmas. Outside shard_map the union is
-empty and this degrades to a plain ShapeDtypeStruct.
+A `pallas_call` inside `jax.shard_map` must declare how its outputs
+vary across mesh axes (`check_vma`); an out_shape without `vma` raises
+at trace time. Every kernel output here varies exactly like its inputs
+(each device's block is computed from that device's shard — there are
+no cross-device reads), so the out struct's vma is the union of the
+input vmas. Outside shard_map the union is empty.
 """
 
 from __future__ import annotations
@@ -17,12 +16,6 @@ import jax
 def out_struct(shape, dtype, *args):
     """ShapeDtypeStruct whose vma is the union of the args' vmas."""
     vma = frozenset()
-    try:
-        for a in args:
-            vma |= jax.typeof(a).vma
-    except (AttributeError, TypeError):  # older jax: no vma tracking
-        return jax.ShapeDtypeStruct(shape, dtype)
-    try:
-        return jax.ShapeDtypeStruct(shape, dtype, vma=vma)
-    except TypeError:
-        return jax.ShapeDtypeStruct(shape, dtype)
+    for a in args:
+        vma |= jax.typeof(a).vma
+    return jax.ShapeDtypeStruct(shape, dtype, vma=vma)

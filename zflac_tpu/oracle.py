@@ -1,7 +1,7 @@
 """Bit-exact scalar FLAC oracle decoder (pure Python, test-only).
 
 This is the executable specification of RFC 9639 decode semantics for the
-TPU engine: slow, sequential, and obviously correct. The production path
+device engine: slow, sequential, and obviously correct. The production path
 (host indexer + XLA/Pallas kernels) is differential-tested against it; it
 itself is validated against the three RFC 9639 appendix streams that the
 reference inlines (/root/reference/tests/basic.zig) and against this

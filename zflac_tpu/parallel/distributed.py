@@ -46,10 +46,7 @@ from ..utils.log import get_logger
 
 _log_shard = get_logger("shard")
 
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 
 def _global_mesh() -> Mesh:
@@ -220,6 +217,7 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
     from ..index.native_indexer import find_anchor, pack2_range
     from ..result import DecodedFLAC, container_dtype
     from ..runtime.decode import verify_stream_md5
+    from ..runtime.backend import backend
     from ..runtime.device import _bucket_block
     from .shard import _pad_pow2, make_pack2_body, repack_common
     from ..index.native_indexer import PACK2_CLASSES
@@ -325,13 +323,13 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
     # 4. global [D, L] array + one shard_map dispatch.
     sharding = NamedSharding(mesh, P("dp", None))
     garr = jax.make_array_from_process_local_data(sharding, bufs)
-    use_pallas = all(d.platform == "tpu" for d in mesh.devices.flat)
     # do_decorrelate must be uniform across processes (it selects the
     # traced program); True is safe — frames with independent channel
     # codes pass through decorrelation unchanged.
     body = make_pack2_body(
         spec, info.channel_count,
-        fmt_container_bits(info.bits_per_sample), True, use_pallas)
+        fmt_container_bits(info.bits_per_sample), True,
+        backend(mesh.devices.flat))
     fn = jax.jit(shard_map(body, mesh=mesh, in_specs=P("dp", None),
                            out_specs=(P("dp"), P("dp"))))
     pcm, totals = fn(garr)

@@ -31,10 +31,7 @@ from ..runtime.reconstruct import (
     _lpc_scan,
 )
 
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 
 def make_mesh(devices=None, axis: str = "dp") -> Mesh:
@@ -269,7 +266,7 @@ def repack_common(cks, num_devices: int):
 
 
 def make_pack2_body(spec, num_channels: int, container_bits: int,
-                    do_decorrelate: bool, use_pallas: bool):
+                    do_decorrelate: bool, backend: str):
     """shard_map body for one pack2 chunk per device: full unpack +
     reconstruction on the local [1, L] buffer shard, plus a psum
     completeness collective over the valid sample counts. Shared by the
@@ -281,7 +278,7 @@ def make_pack2_body(spec, num_channels: int, container_bits: int,
         pcm = _reconstruct_pack2_core(
             b[0], spec=spec, num_channels=num_channels,
             container_bits=container_bits,
-            do_decorrelate=do_decorrelate, use_pallas=use_pallas)
+            do_decorrelate=do_decorrelate, backend=backend)
         off = dict(spec[9])
         Ssort = sum(np_ for _, np_ in spec[8])
         local = jnp.sum(
@@ -398,12 +395,12 @@ def decode_to_device_sharded(data: bytes, mesh: Mesh,
         if any(ck is None for ck in cks):
             return None
 
-    use_pallas = all(d.platform == "tpu" for d in mesh.devices.flat)
+    from ..runtime.backend import backend
     container_bits = fmt.container_bits(info.bits_per_sample)
     do_decor = any(ck.do_decorrelate for ck in cks)
     spec = cks[0].spec_key()
     body = make_pack2_body(spec, cks[0].C, container_bits, do_decor,
-                           use_pallas)
+                           backend(mesh.devices.flat))
     fn = jax.jit(shard_map(
         body, mesh=mesh, in_specs=P("dp"), out_specs=(P("dp"), P("dp"))))
     sh = NamedSharding(mesh, P("dp"))

@@ -1,5 +1,5 @@
 """Decode plan: the structure-of-arrays *frame table* that the host
-indexer emits and the TPU kernels consume.
+indexer emits and the device kernels consume.
 
 This is the load-bearing interface of the two-phase design (SURVEY.md
 §7): phase 1 (serial host scan of the bitstream) produces the plan;
@@ -79,7 +79,7 @@ class StreamPlan:
     variable_blocking: bool = False
     stats: dict = field(default_factory=dict)
     #: Optional Rice-group offset table (native indexer emit_groups=True)
-    #: for the TPU bit-unpack kernel: {"off": [S, GPB] i64 absolute bit
+    #: for the group-table bit-unpack reference (ops/rice.py): {"off": [S, GPB] i64 absolute bit
     #: offsets (-1 invalid), "k": [S, GPB] u8 (0xFE escape, 0xFF host
     #: fallback), "depth": [S, GPB] u8}. Groups cover G=8 output
     #: positions.

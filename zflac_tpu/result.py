@@ -1,6 +1,6 @@
 """Decoded-stream result type, mirroring the reference's public surface
 (`DecodedFLAC` with channels / sample_rate / bits_per_sample / samples,
-/root/reference/src/zflac.zig:18-28), TPU-framework style: samples are a
+/root/reference/src/zflac.zig:18-28), array-framework style: samples are a
 numpy array (interleaved container-width ints), convertible to a
 [n, channels] view.
 """

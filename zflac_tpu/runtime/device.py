@@ -1,7 +1,7 @@
 """Device-resident decode: the pack2 fast path.
 
-`decode_to_device()` is the TPU-native product surface: compressed FLAC
-bytes on the host become PCM in device HBM, ready for on-device
+`decode_to_device()` is the product surface: compressed FLAC bytes on
+the host become PCM in device memory, ready for on-device
 consumers (feature extraction, training input pipelines, on-device
 playback buffers) with no decoded-PCM round trip through host RAM.
 This is the decode analog of GPU-resident data loading.
@@ -11,10 +11,12 @@ Phases (SURVEY.md §7):
      (zfi_pack2_range: per-group bit windows, packed group metadata,
      plan arrays, patches, class gather lists) — no Python packing,
      no device-side gather;
-  2. one H2D transfer + one jitted dispatch per chunk: the rice16
-     Pallas kernel extracts residuals, the lpc2 Pallas kernel runs the
-     order-bucketed LPC recurrence, fixed orders integrate as masked
-     cumsums, then wasted-bits/decorrelation/container wrap.
+  2. one H2D transfer + one jitted dispatch per chunk: the Rice
+     unpack extracts residuals (ops/rice16.py), the order-bucketed LPC
+     recurrence runs per class (ops/lpc_triton.py on the GPU, a
+     lax.scan on the CPU; runtime/backend.py picks), fixed orders
+     integrate as masked cumsums, then wasted-bits/decorrelation/
+     container wrap.
 
 Chunks share one static geometry (a union re-scan unifies the spec
 when natural chunk geometries diverge), so the stream compiles once;
@@ -45,20 +47,12 @@ from ..errors import InconsistentParameters, InvalidChecksum
 from ..result import DecodedFLAC, container_dtype
 
 
-def _on_tpu() -> bool:
-    try:
-        target = jax.config.jax_default_device or jax.devices()[0]
-        return target.platform == "tpu"
-    except RuntimeError:
-        return False
-
-
 def _sect(buf, off: int, n: int):
     return jax.lax.dynamic_slice_in_dim(buf, off, n)
 
 
 def _patch_rows_layout(out, pidx, pval):
-    """Scatter scan-recorded patch values into the rice16 kernel's
+    """Scatter scan-recorded patch values into the Rice unpack's
     time-major output [(GPB+1)*G2, Ssort] (flat idx = pos * Ssort +
     sorted lane; sentinel = the first dead-row element). Indices are
     in-bounds by construction (pack2_helpers.inc emits them against
@@ -73,7 +67,7 @@ def _patch_rows_layout(out, pidx, pval):
 
 def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
                             container_bits: int, do_decorrelate: bool,
-                            use_pallas: bool, stage: str = "full"):
+                            backend: str):
     """One packed pack2 chunk -> container-width PCM [Fp, Bp, C].
     Not jitted: traced under reconstruct_pack2's jit or inside a
     shard_map body (parallel/shard.py).
@@ -90,22 +84,16 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
     stereo, fusing the wasted shift / decorrelation / interleave pack
     on the gathered planes.
 
-    v3 data flow is TIME-MAJOR end to end: the C++ scan emits groups
-    p-major, so the rice16 kernel writes [(GPB+1)*G2, Ssort] (time on
-    rows, sorted subframes on lanes) straight from its output
-    BlockSpec; the warm splice, live mask, fixed cumsums, and the LPC
-    kernels all consume that layout natively. The ONLY full-data
-    relayout left in the graph is the stack transpose feeding the
-    stream-order row gather (v2 paid three: kernel->rows transpose
-    plus .T in/out of every LPC class).
+    The data flow is TIME-MAJOR end to end: the C++ scan emits groups
+    p-major, so the Rice unpack yields [(GPB+1)*G2, Ssort] (time on
+    rows, sorted subframes on lanes); the warm splice, live mask, fixed
+    cumsums, and the LPC reconstruction all consume that layout. The
+    one full-data relayout is the stack transpose feeding the
+    stream-order row gather.
 
-    `stage` truncates the graph for on-chip profiling
-    (tools/profile_pack2.py): "unpack" returns the raw kernel output,
-    "rows" the assembled time-major residual rows, "stack" the
-    reconstructed time-major stack, "signal" the stream-order canvas;
-    "full" (production) the PCM."""
-    from ..ops.rice16 import (G2, rice16_unpack_rows_inline,
-                              unpack16_rows_math)
+    `backend` (runtime/backend.py) selects the GPU kernels ("gpu") or
+    the plain XLA math ("cpu")."""
+    from ..ops.rice16 import unpack16_rows_math
     (Fp, Sp, Bp, GPB, W, NGp, n_patch_p, C, classes, off_items) = spec
     off = dict(off_items)
     Ssort = sum(np_ for _, np_ in classes)
@@ -127,28 +115,20 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
     inv = _sect(buf, off["inv"], Sp)
 
     # ---- time-major residual rows from the bitstream windows ----
-    if use_pallas:
-        out = rice16_unpack_rows_inline(win, meta, Ssort=Ssort)
-    else:
-        out = unpack16_rows_math(win, meta, Ssort=Ssort)
-    if stage == "unpack":
-        return out
+    out = unpack16_rows_math(win, meta, Ssort=Ssort)
 
     if "warm_hi" in off:
         # Wide chunk (a 33-bit side channel somewhere): 64-bit pair
-        # reconstruction (runtime/wide.py). Rare-format path; stages
-        # beyond "unpack" are not individually profiled.
-        return _reconstruct_pack2_wide33(
-            buf, out, spec=spec, use_pallas=use_pallas)
-    # Patches apply on the kernel output: flat time-major indices whose
+        # reconstruction (runtime/wide.py).
+        return _reconstruct_pack2_wide33(buf, out, spec=spec,
+                                         backend=backend)
+    # Patches apply on the unpack output: flat time-major indices whose
     # sentinel is the dead +1 p-row (discarded by the [:Bp] slice), so
     # the scatter is in-bounds by construction — no canvas copies.
     # Patches never target the warm region (all patch positions are
-    # >= order), so the warm splice can come after. (Warm-ups
-    # deliberately do NOT ride the patch list: ~8 patch rows per
-    # subframe turned the scatter into thousands of serialized
-    # one-element DMA updates — measured ~0.8 ms slower than this
-    # select pass.)
+    # >= order), so the warm splice can come after. (Warm-ups do not
+    # ride the patch list: ~8 patch rows per subframe would turn the
+    # scatter into thousands of one-element updates.)
     out = _patch_rows_layout(out, pidx, pval)
     rows_t = out[:Bp]
 
@@ -156,11 +136,9 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
     warm_p = jnp.pad(warm_t, ((0, Bp - 32), (0, 0)))
     rows_t = jnp.where(row < warmlen[None, :], warm_p, rows_t)
     rows_t = jnp.where(row < bssub[None, :], rows_t, 0)
-    if stage == "rows":
-        return rows_t
 
     # ---- per-class reconstruction on static lane slices ----
-    from .reconstruct import _fixed_integrate_t, _lpc_scan
+    from .reconstruct import _fixed_integrate_t, lpc_scan_t
     # High-res (container int32, 17-32 bps) needs the reference's
     # 64-bit LPC accumulator (InterType i64, zflac.zig:314-319): route
     # LPC classes through the hi/lo wide kernel. Everything else in the
@@ -185,31 +163,14 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
                 _fixed_integrate_t(rc, order[sl], seeds_t[:, sl]))
             continue
         hist = hist_of[name]
-        geom = None
-        if use_pallas:
-            from ..ops.lpc2 import lpc2_lanes, lpc2_reconstruct_inline
-            geom = lpc2_lanes(np_, Bp)
-        args = (rc, cfwd_t[:hist, sl],
-                shift[sl][None, :], order[sl][None, :])
-        if geom is not None:
-            lanes, tt = geom
-            if wide:
-                from ..ops.lpc2w import lpc2w_reconstruct_inline
-                out_l = lpc2w_reconstruct_inline(
-                    *args, lanes=lanes, hist=hist, unroll=8, tt=tt)
-            else:
-                out_l = lpc2_reconstruct_inline(
-                    *args, lanes=lanes, hist=hist, unroll=8, tt=tt)
-        elif wide:
-            # Same wide step math as the kernel, as a lax.scan
-            # (CPU tests / non-TPU backends).
-            from ..ops.lpc2w import lpc2w_scan
-            out_l = lpc2w_scan(*args, hist=hist)
+        if backend == "gpu":
+            from ..ops.lpc_triton import lpc_triton, lpc_triton_wide
+            lpc = lpc_triton_wide if wide else lpc_triton
         else:
-            # XLA scan fallback (CPU tests / non-TPU backends); wants
-            # row-major rows and reversed coefficients [n, 32].
-            out_l = _lpc_scan(rc.T, cfwd_t[:, sl].T[:, ::-1],
-                              shift[sl], order[sl]).T
+            from ..ops.lpc2w import lpc2w_scan
+            lpc = lpc2w_scan if wide else lpc_scan_t
+        out_l = lpc(rc, cfwd_t[:hist, sl], shift[sl][None, :],
+                    order[sl][None, :], hist=hist)
         seg_out.append(out_l)
 
     # Time-major stack + one dead zero lane; `inv` (stream -> sorted,
@@ -218,11 +179,7 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
     # ONE full-data relayout, feeding the stream-order row gathers.
     stack_t = jnp.concatenate(
         seg_out + [jnp.zeros((Bp, 1), jnp.int32)], axis=1)
-    if stage == "stack":
-        return stack_t
     stack = stack_t.T
-    if stage == "transpose":
-        return stack
 
     def decorrelate2(c0, c1):
         # Stereo decorrelation (zflac.zig:553-578) on channel planes.
@@ -238,9 +195,8 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
 
     def pack2ch(c0, c1):
         # Stereo interleave without a transpose: the [F, C, B] ->
-        # [F, B, C] relayout has minor dimension C=2, which XLA lowers
-        # as an interleaving copy (measured ~1.7 ms of the 16-bit tail
-        # on v5e). Packing both container-width samples into one int32
+        # [F, B, C] relayout has minor dimension C=2, an interleaving
+        # copy. Packing both container-width samples into one int32
         # lane and bitcasting to the narrower dtype appends the C axis
         # in memory order (little-endian low half = channel 0) as a
         # pure elementwise op.
@@ -252,42 +208,19 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
 
     cdtype = {8: jnp.int8, 16: jnp.int16, 32: jnp.int32}[container_bits]
 
-    if num_channels == 2 and container_bits in (8, 16) and \
-            stage == "full":
+    if num_channels == 2 and container_bits in (8, 16):
         # Stereo fast tail: gather each channel PLANE from the stack
         # (subframes are frame-major, channel-minor, so channel c's
         # rows sit at inv[c::2]) and fuse the wasted shift,
         # decorrelation, and interleave pack on the planes — the
         # [Sp, Bp] stream-order canvas is never materialized.
-        if use_pallas:
-            # One streaming pass: the scalar-prefetched permutation
-            # drives the row DMAs, so no gathered planes (and no
-            # anti-refusion barriers) materialize (ops/packtail.py).
-            from ..ops.packtail import packtail_inline
-            packed = packtail_inline(
-                stack, inv, wasted, chcode, Fp=Fp,
-                container_bits=container_bits)
-            cd = jnp.int16 if container_bits == 16 else jnp.int8
-            if container_bits == 8:
-                packed = packed.astype(jnp.int16)
-            return jax.lax.bitcast_convert_type(packed, cd)
         c0 = stack[inv[0:Sp:2]] << wasted[0:Sp:2][:, None]
         c1 = stack[inv[1:Sp:2]] << wasted[1:Sp:2][:, None]
-        # Materialize the gathered planes once: without the barrier
-        # XLA fuses (= re-executes) each row gather into every
-        # decorrelation consumer (measured 9.6 ms of tail vs ~0.1,
-        # tools/profile_pack2.py).
-        c0 = jax.lax.optimization_barrier(c0)
-        c1 = jax.lax.optimization_barrier(c1)
         if do_decorrelate:
             c0, c1 = decorrelate2(c0, c1)
         return pack2ch(c0, c1)
 
     signal = stack[inv]
-    # Same re-execution hazard as the plane gathers above.
-    signal = jax.lax.optimization_barrier(signal)
-    if stage == "signal":
-        return signal
 
     # Wasted-bits shift (zflac.zig:447,459,495-496,538-539).
     signal = jnp.left_shift(signal, wasted[:, None])
@@ -303,7 +236,7 @@ def _reconstruct_pack2_core(buf, *, spec, num_channels: int,
     return pcm.astype(cdtype)
 
 
-def _reconstruct_pack2_wide33(buf, out, *, spec, use_pallas: bool):
+def _reconstruct_pack2_wide33(buf, out, *, spec, backend: str):
     """Wide-chunk reconstruction: every value rides as an (hi: int32,
     lo: uint32-as-int32) pair so 33-bit side-channel samples
     (zflac.zig:314-319's i64 InterType) stay exact through the LPC
@@ -373,17 +306,11 @@ def _reconstruct_pack2_wide33(buf, out, *, spec, use_pallas: bool):
             seg_l.append(_i32(ol))
             continue
         hist = hist_of[name]
-        geom = None
-        if use_pallas:
-            from ..ops.lpc2 import lpc2_lanes
-            geom = lpc2_lanes(np_, Bp, pairs=2)   # hi+lo in AND out
         args = (rc_h, rc_l, cfwd_t[:hist, sl],
                 shift[sl][None, :], order[sl][None, :])
-        if geom is not None:
-            lanes, tt = geom
-            from ..ops.lpc2w import lpc2w33_reconstruct_inline
-            oh, ol = lpc2w33_reconstruct_inline(
-                *args, lanes=lanes, hist=hist, unroll=8, tt=tt)
+        if backend == "gpu":
+            from ..ops.lpc_triton import lpc_triton_wide33
+            oh, ol = lpc_triton_wide33(*args, hist=hist)
         else:
             from ..ops.lpc2w import lpc2w33_scan
             oh, ol = lpc2w33_scan(*args, hist=hist)
@@ -400,10 +327,6 @@ def _reconstruct_pack2_wide33(buf, out, *, spec, use_pallas: bool):
     h1, l1 = stack_h[inv[1:Sp:2]], _u32(stack_l[inv[1:Sp:2]])
     h0, l0 = shl64(h0, l0, wasted[0:Sp:2][:, None])
     h1, l1 = shl64(h1, l1, wasted[1:Sp:2][:, None])
-    h0 = jax.lax.optimization_barrier(h0)
-    l0 = jax.lax.optimization_barrier(l0)
-    h1 = jax.lax.optimization_barrier(h1)
-    l1 = jax.lax.optimization_barrier(l1)
     new0, new1 = decorrelate2_wide(h0, l0, h1, l1, chcode[:, None])
     return jnp.stack([new0, new1], axis=1).transpose(0, 2, 1)
 
@@ -411,19 +334,20 @@ def _reconstruct_pack2_wide33(buf, out, *, spec, use_pallas: bool):
 @functools.partial(
     jax.jit,
     static_argnames=("spec", "num_channels", "container_bits",
-                     "do_decorrelate", "use_pallas"))
+                     "do_decorrelate", "backend"))
 def reconstruct_pack2(buf, *, spec, num_channels: int,
                       container_bits: int, do_decorrelate: bool,
-                      use_pallas: bool):
+                      backend: str):
     return _reconstruct_pack2_core(
         buf, spec=spec, num_channels=num_channels,
         container_bits=container_bits, do_decorrelate=do_decorrelate,
-        use_pallas=use_pallas)
+        backend=backend)
 
 
 @dataclass
 class DeviceDecoded:
-    """Device-resident decode result: per-chunk PCM arrays in HBM.
+    """Device-resident decode result: per-chunk PCM arrays in device
+    memory.
 
     chunks[i] is [Fp, Bp, C] container-dtype; frame f of chunk i holds
     block_sizes[i][f] valid samples. Values are pre-normalization
@@ -522,8 +446,7 @@ def _scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
                        Bp: int, check_crc: bool, workers: int = 0):
     """Scan the stream into pack2 chunks, parallelized across
     anchor-split byte ranges (SURVEY.md §7 hard part 5: the serial
-    host scan must not become the end-to-end bottleneck — the chip
-    now reconstructs ~20x faster than one core can scan). Ranges are
+    host scan must not become the end-to-end bottleneck). Ranges are
     split at sync-scan anchors (CRC-validated frame starts, the same
     machinery as the native engine and the distributed path) and
     scanned concurrently — the ctypes call releases the GIL, so the
@@ -625,7 +548,8 @@ def decode_to_device(data: bytes, check_crc: bool = False,
                 chunk_frames * info.channel_count * Bp < (1 << 24):
             chunk_frames *= 2
 
-    use_pallas = _on_tpu()
+    from .backend import backend
+    be = backend()
     chunks = _scan_pack2_chunks(data, pos, info, chunk_frames, Bp,
                                 check_crc, workers=scan_workers)
     if chunks is None or not chunks:
@@ -663,7 +587,7 @@ def decode_to_device(data: bytes, check_crc: bool = False,
         pcm = reconstruct_pack2(
             buf_dev, spec=ck.spec_key(), num_channels=ck.C,
             container_bits=fmt.container_bits(ck.bits_per_sample),
-            do_decorrelate=ck.do_decorrelate, use_pallas=use_pallas)
+            do_decorrelate=ck.do_decorrelate, backend=be)
         dd.chunks.append(pcm)
         dd.num_frames.append(ck.F)
         dd.block_sizes.append(ck.f_block_size)

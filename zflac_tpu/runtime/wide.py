@@ -2,10 +2,10 @@
 
 33-bit side-channel subframes (32-bit stream + stereo decorrelation —
 the reference's i64 InterType domain, zflac.zig:256-264,314-319) do not
-fit the int32 lanes the TPU path runs on. Mosaic/XLA:TPU has no native
-int64 vector ops, so wide chunks carry every value as an (hi: int32,
-lo: uint32) pair and emulate the handful of 64-bit operations the
-decode needs: add/sub (bitwise carry/borrow, no unsigned compares),
+fit the int32 lanes the device path runs on. The path was built for an
+accelerator without native int64 vector ops, so wide chunks carry
+every value as an (hi: int32, lo: uint32) pair and emulate the handful
+of 64-bit operations the decode needs: add/sub (bitwise carry/borrow, no unsigned compares),
 left shift by 0..31 (wasted bits), the decorrelation ops including the
 mid-side `(mid +/- side) >> 1` whose bit 32 is the whole reason the
 pair exists, and a pairwise associative scan for the fixed-predictor

@@ -5,6 +5,7 @@ empty submodule in the reference snapshot — SURVEY.md §4)."""
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 
@@ -46,6 +47,55 @@ def noise(n: int, channels: int, bps: int, seed: int = 0,
     rng = np.random.default_rng(seed)
     x = rng.uniform(-1, 1, size=(n, channels)) * (1 << (bps - 1)) * scale
     return _clamp(x, bps)
+
+
+def cached_stream(cache_dir: str, signal: str, n: int, channels: int,
+                  bps: int, sample_rate: int, seed: int, **cfg) -> bytes:
+    """FLAC bytes of a generated signal ("tone_mix", "correlated_stereo"
+    or "noise"), encoded once with EncoderConfig(**cfg) and cached
+    under cache_dir, keyed by every argument."""
+    key = "_".join([signal, str(n), str(channels), str(bps),
+                    str(sample_rate), str(seed)]
+                   + [f"{k}-{v}" for k, v in sorted(cfg.items())])
+    path = os.path.join(cache_dir, key + ".flac")
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return f.read()
+    if signal == "correlated_stereo":
+        assert channels == 2
+        pcm = correlated_stereo(n, bps, seed=seed)
+    else:
+        pcm = {"tone_mix": tone_mix, "noise": noise}[signal](
+            n, channels, bps, seed=seed)
+    data = encode(pcm, sample_rate, bps, EncoderConfig(**cfg))
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+    return data
+
+
+def lpc_case(seed: int, B: int, S: int, hist: int, wide: bool):
+    """Random LPC recurrence inputs in the time-major form of the GPU
+    kernels (ops/lpc_triton.py), inside their exactness domain: rows
+    [B, S] int32 (warm-ups at t < order, residuals after), cfwd
+    [hist, S], shift and order [1, S]. Wide cases (64-bit accumulator)
+    keep sum|c| <= 2^shift — a contractive recurrence, so samples stay
+    in int32 — while products exceed 32 bits."""
+    rng = np.random.default_rng(seed)
+    order = rng.integers(0, hist + 1, S).astype(np.int32)
+    shift = (np.full(S, 14, np.int32) if wide
+             else rng.integers(0, 16, S).astype(np.int32))
+    cf = np.zeros((hist, S), np.int32)
+    rows = rng.integers(-1024, 1025, (B, S)).astype(np.int32)
+    for s in range(S):
+        o = int(order[s])
+        lim = 2048 // max(o, 1) if wide else 4096
+        cf[:o, s] = rng.integers(-lim, lim + 1, o)
+        rows[:o, s] = rng.integers(-2**29 if wide else -2**14,
+                                   2**29 if wide else 2**14, o)
+    return rows, cf, shift[None, :], order[None, :]
 
 
 def silence_and_steps(n: int, channels: int, bps: int,

@@ -1,4 +1,4 @@
-"""Optional jax.profiler tracing for the decode pipeline (the TPU
+"""Optional jax.profiler tracing for the decode pipeline (the device
 analog of the reference's scoped std.log tracing, SURVEY.md §5).
 
 Set ZFLAC_TPU_PROFILE=/some/dir to capture a jax.profiler trace of
